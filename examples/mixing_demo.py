@@ -12,8 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("SV_DEVICE", "cpu") == "cpu":
-    # default to CPU so the demo runs without TPU access
+if os.environ.get("SV_DEVICE") == "cpu":
     import jax
     jax.config.update("jax_platforms", "cpu")
 

@@ -1,13 +1,12 @@
-"""Multiview wall example: a 3x3 grid of sources composited by the fused
-frame kernel (falls back to the XLA fold off-TPU).
+"""Multiview wall example: a 3x3 grid of sources composited by the
+mixer's tick program (``composite.composite_tick``, one jitted XLA fold
+per frame).
 
 Role parity with a production multiview monitor: nine cameras tiled onto
 one 1080p program output, plus an RGBA label strip over each tile.
 
 Run: python examples/multiview_demo.py [out_dir]
-On TPU the 3x3 composite runs as ONE pallas_call per frame
-(ops/pallas_frame.py, vertical row-group p=3); elsewhere it uses the
-interpreter / XLA paths and produces identical output (<=1 LSB).
+(on JAX's default device; SV_DEVICE=cpu forces the CPU)
 """
 
 import os
@@ -15,15 +14,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("SV_DEVICE", "cpu") == "cpu":
+if os.environ.get("SV_DEVICE") == "cpu":
     import jax
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
 from swiftvideo_tpu.media.pixel import PixelFormat
-from swiftvideo_tpu.ops import golden, rect_uniforms
-from swiftvideo_tpu.ops.pallas_frame import composite_frame_pallas
+from swiftvideo_tpu.ops import composite, golden, rect_uniforms
 
 
 def camera(seed: int, w: int, h: int):
@@ -57,14 +55,10 @@ def main(out_dir: str = "/tmp/multiview_demo") -> None:
                                    y=y + th - 40.7, w=tw - 16, h=32,
                                    opacity=0.85).pack()))
     import jax
-    on_tpu = jax.devices()[0].platform == "tpu"
-    out = composite_frame_pallas((W, H), srcs, interpret=not on_tpu)
-    if out is None:
-        print("kernel ineligible; using the XLA/golden path")
-        out = golden.composite_stack(PixelFormat.y420p, (W, H), srcs)
+    out = composite.composite_tick(PixelFormat.y420p, (W, H), srcs)
     planes = [np.asarray(p) for p in out]
     print("composited 3x3 wall:", [p.shape for p in planes],
-          "path:", "pallas" if on_tpu else "pallas-interpret")
+          "on", jax.devices()[0].platform)
     try:
         import cv2
         from swiftvideo_tpu.ops import identity_uniforms

@@ -4,9 +4,9 @@ gather-free warp path (ops/warp.py).
 
 Role parity: the reference animates element transforms through
 `PictureAnimator` (animator.pic.swift:193-205 lerps rotation) and its GPU
-samplers take any 4x4 transform; on TPU rotated sources route through the
-three-pass shear warp (one angle-stable compiled program for the whole
-animation).
+samplers take any 4x4 transform; here large rotated sources route
+through the three-pass shear warp (one angle-stable compiled program for
+the whole animation).
 
 Run: python examples/rotation_demo.py [out_dir]
 """
@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("SV_DEVICE", "cpu") == "cpu":
+if os.environ.get("SV_DEVICE") == "cpu":
     import jax
     jax.config.update("jax_platforms", "cpu")
 

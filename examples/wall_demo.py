@@ -1,4 +1,5 @@
-"""64-stream mixing wall on a device mesh (virtual CPU mesh by default).
+"""64-stream mixing wall on a device mesh: JAX's default devices, or a
+virtual n-device CPU mesh with SV_DEVICE=cpu.
 
 Run: python examples/wall_demo.py [n_devices]
 """
@@ -10,18 +11,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(n_devices: int = 8) -> None:
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + f" --xla_force_host_platform_device_count={n_devices}").strip()
+    if os.environ.get("SV_DEVICE") == "cpu":
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + f" --xla_force_host_platform_device_count="
+                f"{n_devices}").strip()
+        import jax
+        jax.config.update("jax_platforms", "cpu")
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
     from swiftvideo_tpu.parallel import MixingWall, make_mesh
 
-    mesh = make_mesh(jax.devices("cpu")[:n_devices])
+    mesh = make_mesh(jax.devices()[:n_devices])
     wall = MixingWall(mesh, n_streams=64, stream_size=(96, 54),
                       canvas_size=(256, 128), audio_samples=48)
     rng = np.random.default_rng(0)

@@ -14,8 +14,8 @@ without writing a graph by hand:
   probe      print stream parameters of an elementary/container file
 
 Everything runs on the StepClock / WallClock graph runtime; device
-compute engages automatically when a TPU is visible (``SV_DEVICE=cpu``
-forces CPU, mirroring the examples).
+compute runs on JAX's default device, the GPU where one is visible
+(``SV_DEVICE=cpu`` forces CPU, mirroring the examples).
 """
 
 from __future__ import annotations
@@ -28,11 +28,17 @@ import sys
 from typing import List, Optional
 
 
-def _maybe_force_cpu() -> None:
+def _device_setup() -> None:
+    """For the commands that compute on the device: honour SV_DEVICE=cpu
+    and keep compiled programs in the persistent cache.  (``serve`` never
+    imports JAX, so its forked workers never open the device.)"""
+    from .utils.compile_cache import enable_compile_cache
+
     if os.environ.get("SV_DEVICE", "") == "cpu":
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
 
 # --------------------------------------------------------------------------
@@ -58,7 +64,7 @@ def _default_composition():
 
 def cmd_mix(args: argparse.Namespace) -> int:
     """Composition JSON -> Composer -> PNG frames (Examples/Mixing)."""
-    _maybe_force_cpu()
+    _device_setup()
     import numpy as np
 
     from .compose import Composer, composition_from_json
@@ -459,7 +465,7 @@ def _fmt_for(path: str, table, override: Optional[str]):
 def cmd_transcode(args: argparse.Namespace) -> int:
     """File -> decode -> (SRC) -> encode -> elementary stream files
     (Examples/Transcoding: rename >> decode >> encode graphs)."""
-    _maybe_force_cpu()
+    _device_setup()
     import time
 
     from .codec.codecs import (AudioDecoder, AudioEncoder, VideoDecoder,
@@ -806,7 +812,7 @@ def cmd_probe(args: argparse.Namespace) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m swiftvideo_tpu",
-        description="SwiftVideo-TPU command line (mix / transcode / serve /"
+        description="SwiftVideo command line (mix / transcode / serve /"
                     " probe)")
     sub = ap.add_subparsers(dest="command", required=True)
 

@@ -95,20 +95,16 @@ def split_annexb(data: bytes) -> List[bytes]:
     payload zeros (e.g. cabac_zero_words) are preserved.
     """
     nals = []
-    i = 0
-    n = len(data)
     start = None
-    while i + 3 <= n:
-        if data[i:i + 3] == b"\x00\x00\x01":
-            if start is not None:
-                end = i
-                if end > start and data[end - 1] == 0:
-                    end -= 1        # the 4-byte start-code lead-in only
-                nals.append(data[start:end])
-            i += 3
-            start = i
-        else:
-            i += 1
+    i = data.find(b"\x00\x00\x01")
+    while i != -1:
+        if start is not None:
+            end = i
+            if end > start and data[end - 1] == 0:
+                end -= 1            # the 4-byte start-code lead-in only
+            nals.append(data[start:end])
+        start = i + 3
+        i = data.find(b"\x00\x00\x01", start)
     if start is not None:
         nals.append(data[start:])
     return nals

@@ -137,6 +137,20 @@ class StatsReport:
             else:
                 bucket.int_samples.setdefault(name, []).append((sample_time, int(val)))
 
+    def sample_values(self, name: str) -> List[float]:
+        """Every sample of ``name`` still held in the buckets, as floats
+        (TimePoint samples — timer durations — in seconds)."""
+        with self._lock:
+            out: List[float] = []
+            for bucket in self._samples:
+                out += [seconds(v) for _t, v in
+                        bucket.timepoint_samples.get(name, ())]
+                out += [float(v) for _t, v in
+                        bucket.double_samples.get(name, ())]
+                out += [float(v) for _t, v in
+                        bucket.int_samples.get(name, ())]
+            return out
+
     def _bucket_index(self, time: TimePoint) -> int:
         # stats.swift:162-167
         duration = rescale(self._period, time.scale)

@@ -163,7 +163,7 @@ class AudioMixer(Source):
             return
         ctx = self.compute_context
         device_ok = (ctx is not None
-                     and getattr(ctx, "backend", None) in ("jax", "pallas")
+                     and getattr(ctx, "backend", None) == "jax"
                      and len(contribs) * backing.size >= self.device_min_elems)
         if device_ok:
             gains = np.stack([np.asarray(g, np.float32)

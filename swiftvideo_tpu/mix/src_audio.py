@@ -7,8 +7,7 @@ sample anchors ``pts = rescale(sample.pts, outFrequency)``; every emitted
 sample carries the accumulated pts and advances it by its own sample count
 (:103) — the exact-bookkeeping contract of sampleRateConversionTests.
 
-The DSP is the TPU-native polyphase matmul resampler (ops.resample)
-replacing soxr.
+The DSP is the polyphase matmul resampler (ops.resample) replacing soxr.
 """
 
 from __future__ import annotations

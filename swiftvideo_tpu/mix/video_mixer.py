@@ -7,12 +7,12 @@ per-revision sample maps (fresh frames win; the previous generation repeats
 a source's last frame when no new one arrived — mix.video.swift:105-114),
 z-sorts them, and composites into the output.
 
-TPU-first deviations:
+Device deviations:
 
 * The per-source kernel-launch fold (clear, then one ``applyComputeImage``
   per source with a ``clFinish`` sync — mix.video.swift:116-125) becomes
-  **one fused jitted program per tick** (ops.composite.composite_stack_device)
-  — a single XLA dispatch for clear + N sources.
+  **one fused jitted program per tick** (ops.composite's boxed folds) —
+  a single XLA dispatch for clear + N sources, with no per-frame sync.
 * The 10-image GPU backing ring (mix.video.swift:148-167) is unnecessary:
   XLA owns device buffers and the program output is a fresh immutable
   array; pipelining comes from async dispatch, not from a ring.  pts comes
@@ -34,14 +34,6 @@ from ..media.picture import BufferType, ImageBuffer, PictureSample
 from ..media.pixel import PixelFormat, planes_for_format
 from ..ops import ImageUniforms, composite, golden
 from ..ops.registry import ComputeContext, make_compute_context
-
-
-def _on_tpu() -> bool:
-    try:
-        import jax
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        return False
 
 
 class VideoMixer(Source):
@@ -69,10 +61,6 @@ class VideoMixer(Source):
         self._samples: List[Dict[str, PictureSample]] = [{}, {}]
         self._lock = threading.RLock()
         self._closed = False
-        # ingest-pad cache for the fused pallas path: repeated sources
-        # (Repeater holds, static overlays) skip the pad dispatch and the
-        # host->device upload on every tick (ops/pallas_frame.PadCache)
-        self._pad_cache = None
 
         def digest(pic: PictureSample) -> EventBox:
             if pic.asset_id() != self.id_asset:
@@ -136,31 +124,8 @@ class VideoMixer(Source):
                                                 self.output_size, sources)
                 btype = BufferType.cpu
             else:
-                planes = None
-                if (self.output_format in (PixelFormat.y420p,
-                                           PixelFormat.nv12,
-                                           PixelFormat.nv21)
-                        and _on_tpu()):
-                    # fused whole-frame kernel: one HBM read per source
-                    # (ops/pallas_frame.py); None when ineligible.
-                    # Biplanar targets interleave chroma in the runner's
-                    # epilogue (kernels.cl.swift:47-109).
-                    from ..ops.pallas_frame import (PadCache,
-                                                    composite_frame_pallas)
-                    if self._pad_cache is None:
-                        self._pad_cache = PadCache()
-                    self._pad_cache.begin_tick()
-                    planes = composite_frame_pallas(
-                        self.output_size, sources,
-                        out_fmt=self.output_format,
-                        pad_cache=self._pad_cache)
-                    self._pad_cache.end_tick()
-                if planes is None:
-                    planes = composite.composite_stack_batched_boxed(
-                        self.output_size, sources) \
-                        if self.output_format == PixelFormat.y420p else \
-                        composite.composite_stack_boxed(
-                            self.output_format, self.output_size, sources)
+                planes = composite.composite_tick(
+                    self.output_format, self.output_size, sources)
                 btype = BufferType.gpu
             self.stats.end_timer("mix.video.compose")
             img = ImageBuffer(

@@ -1,4 +1,4 @@
-"""Device compute: kernel registry, golden oracle, JAX/Pallas paths."""
+"""Device compute: kernel registry, golden oracle, jitted XLA paths."""
 
 from .color import RGB2YUV, YUV2RGB, rgb_to_yuv, yuv_to_rgb
 from .uniforms import (UNIFORM_WIDTH, ImageUniforms, identity_uniforms,

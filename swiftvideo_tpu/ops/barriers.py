@@ -5,7 +5,7 @@ Reference semantics: ``GPUBarrierUpload`` / ``GPUBarrierDownload``
 the audio barrier pair the reference left dormant (compute.swift:200-282) —
 implemented here for the device audio mixing path.
 
-TPU-first: uploads are ``jax.device_put`` of dense planes (asynchronous;
+Device transfers: uploads are ``jax.device_put`` of dense planes (asynchronous;
 no per-plane blocking writes — the reference's blocking clEnqueueWriteImage
 is exactly what to avoid, SURVEY.md §7), downloads materialize numpy arrays.
 """

@@ -1,10 +1,10 @@
 """Device composite path: jitted XLA programs over the shared spec math.
 
-The gather-based device path runs golden.py's algorithm with ``jax.numpy``,
-jitted per (output format, size, source-structure) — XLA fuses the whole
-clear + N-source fold into a handful of kernels.  This is the correctness
-device path; ops.pallas_kernels holds the hand-fused performance kernels and
-falls back to this everywhere Pallas is unavailable (CPU tests).
+The device path runs golden.py's algorithm with ``jax.numpy``, jitted per
+(output format, size, source-structure) — XLA fuses the whole clear +
+N-source fold into a handful of kernels, with per-pixel bilinear gathers
+straight from the device planes.  ``composite_tick`` is the one entry the
+VideoMixer calls every tick.
 
 Batching: ``composite_stack_batched`` vmaps the fold over a leading stream
 axis — the multi-stream mixing wall builds on it (parallel.wall shards the
@@ -185,7 +185,7 @@ def _warp_blend_program(out_fmt: PixelFormat, in_fmt: PixelFormat,
         def many(grid, planes):
             # one vmapped warp pass for all of a grid's channels (the
             # cascade is pure rolls + hat matmuls, so the channel axis
-            # batches straight onto the MXU) — [C, Ho, Wo] -> [Ho, Wo, C]
+            # batches straight into the matmuls) — [C, Ho, Wo] -> [Ho, Wo, C]
             prog, tr = runs[grid]
             stacked = jnp.stack([p.T if tr else p for p in planes])
             out = jax.vmap(lambda q: prog(q, *warp_args[grid]))(stacked)
@@ -443,15 +443,11 @@ def _phase_info(packed_list, size: Tuple[int, int],
     """Shared rational phase info ((py, qy), (px, qx)) when every source has
     the same rational axis scales, else None (gather path).
 
-    NOTE: the XLA lowering of the phased (strided-slice) path is SLOWER than
-    the gather path on TPU — each strided slice lowers to its own full-plane
-    HBM pass (~0.155 ms/1080p plane on v5e through this stack), so the
-    3-tap separable sampler costs ~6 passes/plane vs the gather path's
-    fused ~1.5.  The phased algebra is therefore NOT wired into the default
-    device paths; it exists for (a) CPU/oracle validation and (b) the
-    pallas kernel, where the taps are VMEM-resident register reads and the
-    formulation wins.  See NOTES_ROUND2.md for the measured pass-cost
-    model."""
+    The phased (strided-slice) algebra is NOT wired into the default
+    device paths: each strided slice can lower to its own full-plane pass,
+    so the 3-tap separable sampler may move several times the bytes of
+    the gather path's fused sampling.  It is kept as a gather-free
+    alternative that PERF.md times against the gather on the card."""
     infos = set()
     for p in packed_list:
         ay, ax = _axis_scales(np.asarray(p), size, in_shape)
@@ -471,9 +467,7 @@ def _phased_axis_sample(plane, c, p: int, q: int, n_out: int, axis: int):
     hits source index floor(c) + m_k + p*t with a per-phase constant
     fractional weight — so sampling is q static-strided slices plus a
     3-tap hat-weighted sum (the hat spans floor boundaries), with the only
-    dynamic quantity one dynamic_slice start.  No gathers: on TPU this is
-    ~10x the gather path's throughput (gathers lower ~13x off memory
-    bound in this stack; benchmarks/micro_composite.py).
+    dynamic quantity one dynamic_slice start.  No gathers.
 
     Positions outside [-0.5, S-0.5] return garbage-but-bounded values;
     callers mask those out (out-of-texture pixels never use samples).
@@ -695,18 +689,19 @@ def composite_frames_device(size: Tuple[int, int], ys, us, vs, uniforms):
     return program(ys, us, vs, jnp.asarray(uniforms))
 
 
-def composite_stack_batched_boxed(size: Tuple[int, int], sources):
-    """Uniform-case fast fold: all sources same shape, axis-aligned,
-    planar-yuv, one shared (max) box bucket.  Falls back to
-    composite_stack_boxed otherwise."""
+def batched_boxed_program(size: Tuple[int, int], sources):
+    """``(program, args)`` of the uniform-case fast fold — all sources the
+    same shape, axis-aligned, planar-yuv, one shared (max) box bucket —
+    or None when the stack is not uniform.  ``program(*args)`` returns
+    the y420p target planes; the program is jitted and jittable."""
     from ..media.pixel import PixelFormat as PF
     packed = [golden._packed(u) for _, _, u in sources]
-    shapes = {tuple(np.asarray(s[0]).shape) for s, _, _ in sources}
+    shapes = {tuple(np.shape(s[0])) for s, _, _ in sources}
     ok = (sources and len(shapes) == 1
           and all(fmt == PF.y420p for _, fmt, _ in sources)
           and all(golden.is_axis_aligned(p) for p in packed))
     if not ok:
-        return composite_stack_boxed(PF.y420p, size, sources)
+        return None
     boxes = [_host_box_size(p, size) for p in packed]
     box = (max(b[0] for b in boxes), max(b[1] for b in boxes))
     in_shape = next(iter(shapes))
@@ -715,4 +710,26 @@ def composite_stack_batched_boxed(size: Tuple[int, int], sources):
     vs = jnp.stack([jnp.asarray(s[2]) for s, _, _ in sources])
     unis = jnp.stack([jnp.asarray(p) for p in packed])
     program = _stack_program_batched_boxed(size, len(sources), box, in_shape)
-    return program(ys, us, vs, unis)
+    return program, (ys, us, vs, unis)
+
+
+def composite_stack_batched_boxed(size: Tuple[int, int], sources):
+    """Uniform-case fast fold (see ``batched_boxed_program``).  Falls back
+    to composite_stack_boxed otherwise."""
+    from ..media.pixel import PixelFormat as PF
+    plan = batched_boxed_program(size, sources)
+    if plan is None:
+        return composite_stack_boxed(PF.y420p, size, sources)
+    program, args = plan
+    return program(*args)
+
+
+def composite_tick(out_fmt: PixelFormat, size: Tuple[int, int], sources):
+    """The mixer's per-tick composite: clear + z-ordered fold of
+    ``sources`` into ``out_fmt`` at ``size``, as one jitted program.
+    Uniform y420p stacks take the batched-sampling boxed fold; every other
+    stack the boxed fold (which itself routes rotated, packed and rgba
+    sources)."""
+    if out_fmt == PixelFormat.y420p:
+        return composite_stack_batched_boxed(size, sources)
+    return composite_stack_boxed(out_fmt, size, sources)

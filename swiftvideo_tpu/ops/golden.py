@@ -7,8 +7,8 @@ GPU (kernels.cl.swift:47-532, with the manual bilinear math of
 kernels.cuda.swift:66-114 as the sampler definition).  All functions are
 written against an array namespace ``xp`` — ``numpy`` (the golden CPU
 oracle) or ``jax.numpy`` (the jit-able device reference path) — so both
-paths share identical math by construction.  The fused Pallas kernels in
-ops.pallas_kernels are validated against this at <=1 LSB max pixel error.
+paths share identical math by construction.  Every device program is
+validated against this at <=1 LSB max pixel error.
 
 Algorithm per output pixel (x, y) on an output grid of size W x H:
 
@@ -71,8 +71,8 @@ def bilinear_norm(plane, u, v, xp=np):
     When the coords are **separable** (``u`` shaped [1, W], ``v`` shaped
     [H, 1] — the axis-aligned transform case), sampling runs as a row
     gather + lerp followed by a column gather + lerp instead of four full
-    2-D gathers.  On TPU this is ~77x faster (2-D gathers lower terribly;
-    benchmarks/micro_composite.py), and the arithmetic is identical.
+    2-D gathers: each axis's indices are computed once per row or column,
+    and the arithmetic is identical.
     """
     h, w = plane.shape[:2]
     separable = (getattr(u, "ndim", 0) == 2 and u.shape[0] == 1
@@ -244,7 +244,7 @@ def apply_composite(target_planes: Sequence, out_fmt: PixelFormat,
     launch, compute.cl.swift:264-344).  Returns new target planes (u8).
 
     ``separable=True`` selects the axis-split sampling path — exact for
-    axis-aligned transforms (see is_axis_aligned), ~77x faster on TPU.
+    axis-aligned transforms (see is_axis_aligned).
 
     ``sampler``: optional override for texture fetches — a callable
     ``sampler(grid) -> array`` with grid in {"y", "uv", "rgba"} returning

@@ -1,24 +1,27 @@
-"""Bilinear scale/convert as banded matmuls — the MXU is the sampler.
+"""Bilinear scale/convert as banded matmuls — the matrix unit is the sampler.
 
 ``out = V @ X @ H`` where ``V`` [oh, ih] and ``H`` [iw, ow] are
 host-precomputed hat-function (two-tap bilinear) matrices and ``X`` is the
 source plane.  This expresses ANY rational or irrational axis-aligned
 scale — including the transcode ladder's 2:3 / 4:9 verticals and the
-64-stream wall's 1080->136 (135:17) tiles — as two dense MXU matmuls with
-no gathers, no dynamic slices, and no Pallas lowering hazards.  It runs
-identically on CPU (tests, multichip dryrun) and TPU.
+64-stream wall's 1080->136 (135:17) tiles — as two dense matmuls with
+no gathers and no dynamic slices.
 
-Precision: matmuls run at ``jax.lax.Precision.HIGH`` (three-pass bf16 on
-the MXU, ~2^-21 relative error).  The hat matrices have exactly two
-nonzero taps per output row/col that sum to 1, so absolute error vs the
-f32 oracle is <= 255 * 2^-20 — far inside the <=1 LSB contract
-(tests/test_matscale.py asserts it against golden.apply_composite).
+Precision: matmuls run at ``jax.lax.Precision.HIGH``, which on the H100
+is one TF32 pass (10-bit mantissa; a 512x512 f32 product measured 2.9e-4
+relative error, the same as the default precision).  Pixel values up to
+255 are exact in TF32.  Each hat row has two taps summing to 1, each
+rounded by at most 2^-12 relative, so the first pass errs by at most
+255 * 2 * 2^-12 = 0.125; the second pass adds the rounding of its
+inputs (<= 0.0625) and of its taps (<= 0.125).  The result stays within
+~0.31 of the f32 oracle before ``rint``, inside the <=1 LSB contract
+(tests/test_matscale.py; checked at 1080p on the card by chip_smoke.py).
 
 Semantics parity: taps are clamp-to-edge exactly like
 ``golden.bilinear_norm`` (kernels.cuda.swift:66-114 is the reference's
-manual-sampling twin); geometry comes from the same ``_plane_params``
-algebra as the Pallas frame kernel, so a plan built from composite
-uniforms samples pixel-identically to the oracle's separable path.
+manual-sampling twin); geometry comes from ``_plane_params_np``, the f32
+affine algebra of golden's separable coordinate chain, so a plan built
+from composite uniforms samples pixel-identically to the oracle.
 """
 
 from __future__ import annotations
@@ -32,14 +35,35 @@ import numpy as np
 from . import golden
 
 
-def _plane_ab(packed: np.ndarray, h_out: int, w_out: int,
-              h_in: int, w_in: int) -> Tuple[float, float, float, float]:
-    """(ay, by, ax, bx): src_y = ay*r + by, src_x = ax*c + bx — identical
-    f32 arithmetic to pallas_frame._plane_params_np (parity-critical)."""
-    from .pallas_frame import _plane_params_np
-    p = _plane_params_np(np.asarray(packed, np.float32), h_out, w_out,
-                         h_in, w_in)
-    return float(p[0]), float(p[1]), float(p[2]), float(p[3])
+def _plane_params_np(packed: np.ndarray, h_out: int, w_out: int,
+                     h_in: int, w_in: int) -> np.ndarray:
+    """Per-plane affine scalars of a packed uniform vector, in f32:
+    ``[ay, by, ax, bx]`` map output pixel (r, c) to source texel
+    (ay*r + by, ax*c + bx); the next four map it to texture space and
+    the last four to border space (golden._masks' separable chain)."""
+    p = np.asarray(packed, np.float32)
+    t0, t3, t4, t5 = p[0], p[3], p[4], p[5]
+    e0, e3, e4, e5 = p[6], p[9], p[10], p[11]
+    b0, b3, b4, b5 = p[12], p[15], p[16], p[17]
+    f = np.float32
+    a_tx_x = f(t0 * f(2.0) / f(w_out))
+    b_tx_x = f(t4 - t0)
+    a_uv_x = f(e0 * a_tx_x)
+    b_uv_x = f(f(e0 * b_tx_x) + e4)
+    ax = f(a_uv_x * f(w_in))
+    bx = f(f(b_uv_x * f(w_in)) - f(0.5))
+    a_tx_y = f(t3 * f(2.0) / f(h_out))
+    b_tx_y = f(t5 - t3)
+    a_uv_y = f(e3 * a_tx_y)
+    b_uv_y = f(f(e3 * b_tx_y) + e5)
+    ay = f(a_uv_y * f(h_in))
+    by = f(f(b_uv_y * f(h_in)) - f(0.5))
+    a_bd_x = f(b0 * f(2.0) / f(w_out))
+    b_bd_x = f(b4 - b0)
+    a_bd_y = f(b3 * f(2.0) / f(h_out))
+    b_bd_y = f(b5 - b3)
+    return np.array([ay, by, ax, bx, a_tx_y, b_tx_y, a_tx_x, b_tx_x,
+                     a_bd_y, b_bd_y, a_bd_x, b_bd_x], np.float32)
 
 
 def hat_matrix(n_out: int, n_in: int, a: float, b: float,
@@ -89,7 +113,6 @@ def plan_scale(uniform, out_size: Tuple[int, int],
         return None
     if abs(float(p[22]) - 1.0) > 1e-9:        # opacity
         return None
-    from .pallas_frame import _plane_params_np
     pl_ = _plane_params_np(np.asarray(p, np.float32), h, w, h_in, w_in)
     ay, by, ax, bx = (float(pl_[0]), float(pl_[1]),
                       float(pl_[2]), float(pl_[3]))
@@ -139,7 +162,7 @@ def scale_y420p(planes: Sequence, plan: ScalePlan):
 
 def scale_y420p_batch(ys, us, vs, plan: ScalePlan):
     """[N, H, W] (+half-res chroma) -> batched scaled planes.  The batch
-    axis rides the MXU's batch dimension; shard it over a mesh for the
+    axis is the matmuls' batch dimension; shard it over a mesh for the
     mixing wall (parallel/wall.py)."""
     f = jax.vmap(lambda y, u, v: scale_y420p((y, u, v), plan))
     return f(ys, us, vs)

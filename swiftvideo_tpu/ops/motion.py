@@ -14,34 +14,20 @@ kernel sums UNORM floats; exact integers make ties deterministic, which a
 float-summation oracle cannot).  Ties break to the earliest candidate in
 (tx, ty) scan order, matching the reference's x-major strict-minimum loop.
 
-Three implementations:
+Implementations:
 
 * ``me_fullsearch_golden`` — scalar-loop numpy oracle.
-* ``me_fullsearch_device`` — XLA ``lax.scan`` over the global displacement
-  set (any geometry; the small-frame / CPU path).
-* ``me_fullsearch_pallas`` — the production TPU kernel: one grid step per
-  16-row block strip; the padded reference frame is VMEM-resident.  The
-  dy walk loads 8-ALIGNED (block+8)-row windows and statically unrolls
-  the 8 in-window rows (Mosaic rejects unaligned dynamic sublane loads
-  and sub-32-bit rotates — both first caught by the hardware sweep); a
-  ``pltpu.roll`` carry walks the dx axis one lane per step (lane-dynamic
-  slices at arbitrary offsets are not Mosaic-friendly; circular rolls
-  are).  All arithmetic is f32 over exact small integers (diffs <= 255,
-  block sums <= 65280 < 2^24): rotates only exist for 32-bit data and
-  u8 casts must bounce through i32.  The per-strip dy window rides in
-  via scalar prefetch with out-of-window rows masked by score.
-  Per-block horizontal windows are an i32 validity mask; the extra left-
-  edge dx range (blocks whose clamped window extends past the shared
-  ``d_lo`` base) runs as a narrow 128-lane tail loop on the same rolled
-  carry.  First-minimum semantics use a lexicographic (score, key) update
-  with key = dx_index * n_dy + dy_index.
+* ``me_fullsearch_device`` — the device entry: XLA ``lax.scan`` over the
+  global displacement set for exact SAD (any geometry), or the SSD
+  matmul variant (``metric="ssd"``, section below).
+* ``me_fullsearch_pyramid`` — experimental two-stage mode.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -148,7 +134,9 @@ def _me_program(h: int, w: int, block: int, search: int,
     ylo, yhi = bounds(oy, h)   # [hb]
 
     def run(cur_u8, ref_u8):
-        cur = cur_u8.astype(jnp.int32)
+        # blocks tile the top-left hb*block x wb*block region (1080 rows
+        # hold 67 whole 16-row strips); candidates still read the full frame
+        cur = cur_u8[:hb * block, :wb * block].astype(jnp.int32)
         ref = ref_u8.astype(jnp.int32)
         pad = search
         refp = jnp.pad(ref, ((pad, pad), (pad, pad)))
@@ -156,7 +144,8 @@ def _me_program(h: int, w: int, block: int, search: int,
         def step(carry, d):
             best_score, best_dx, best_dy = carry
             dx, dy = d[0], d[1]
-            shifted = jax.lax.dynamic_slice(refp, (pad + dy, pad + dx), (h, w))
+            shifted = jax.lax.dynamic_slice(refp, (pad + dy, pad + dx),
+                                            (hb * block, wb * block))
             diff = jnp.abs(cur - shifted)
             sad = diff.reshape(hb, block, wb, block).sum(axis=(1, 3))
             # candidate t = o + d must lie in [lo, hi) per block axis
@@ -183,293 +172,37 @@ def _me_program(h: int, w: int, block: int, search: int,
     return jax.jit(run)
 
 
-# --- Pallas strip kernel ---------------------------------------------------
-
-def _pallas_geometry(h: int, w: int, block: int, search: int):
-    """Host-side geometry for the strip kernel (all numpy)."""
-    d_lo = block // 2 - search // 2           # shared dx base (negative)
-    n_win = search - block                    # candidates per axis window
-    p_l = -d_lo                               # extra left-edge dx count
-    strips = h // block
-    wb = w // block
-
-    # per-strip dy window: kernel reads ref rows [ylo + j, ylo + j + block)
-    # for j < nvy, which stays inside [0, h] by construction of yhi
-    oy = np.arange(strips, dtype=np.int32) * block
-    ylo = np.minimum(np.maximum(oy + d_lo, 0), h)
-    yhi = np.minimum(ylo + search, h) - block
-    nvy = np.maximum(yhi - ylo, 0)
-    jgbase = (ylo - oy) - d_lo                    # dy-global index base
-
-    # per-block-column dx windows -> lane masks
-    ox = np.arange(wb, dtype=np.int32) * block
-    xlo = np.minimum(np.maximum(ox + d_lo, 0), w)
-    xhi = np.minimum(xlo + search, w) - block
-    dx_lo = xlo - ox                              # first valid dx per col
-    dx_hi = xhi - ox                              # one-past-last valid dx
-    lane_lo = np.repeat(dx_lo, block)             # [w]
-    lane_hi = np.repeat(dx_hi, block)
-    dxs = d_lo + np.arange(n_win, dtype=np.int32)
-    main_mask = ((dxs[:, None] >= lane_lo[None, :])
-                 & (dxs[:, None] < lane_hi[None, :])).astype(np.int32)
-    edxs = d_lo + n_win + np.arange(p_l, dtype=np.int32)
-    edge_w = min(128, w)
-    edge_mask = ((edxs[:, None] >= lane_lo[None, :edge_w])
-                 & (edxs[:, None] < lane_hi[None, :edge_w])).astype(np.int32)
-
-    # f32 MV-cost table indexed [dx_global, dy_global]
-    n_d = n_win + p_l
-    dvals = (d_lo + np.arange(n_d)).astype(np.float64)
-    cost = delta_cost2(-dvals[:, None], -dvals[None, :]).astype(np.float32)
-
-    pad_l = p_l
-    wpad = ((pad_l + w + n_win + 127) // 128) * 128
-    wpad = max(wpad, 256)                         # edge loop needs 256 lanes
-    scalars = np.stack([ylo, nvy, jgbase], axis=1).astype(np.int32)
-    return dict(d_lo=d_lo, n_win=n_win, p_l=p_l, strips=strips, wb=wb,
-                main_mask=main_mask, edge_mask=edge_mask, cost=cost,
-                pad_l=pad_l, wpad=wpad, scalars=scalars, edge_w=edge_w,
-                jgbase=jgbase)
-
-
-@lru_cache(maxsize=8)
-def _me_pallas_program(h: int, w: int, block: int, search: int,
-                       interpret: bool):
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    g = _pallas_geometry(h, w, block, search)
-    n_win, p_l, strips = g["n_win"], g["p_l"], g["strips"]
-    n_d = n_win + p_l
-    pad_l, wpad, edge_w = g["pad_l"], g["wpad"], g["edge_w"]
-    big_key = np.int32(2 ** 30)
-
-    if interpret:
-        def roll(x, n, axis=1):
-            return jnp.roll(x, -n, axis=axis)
-    else:
-        def roll(x, n, axis=1):
-            # pltpu.roll rejects negative shifts; left-roll n == roll size-n
-            return pltpu.roll(x, shift=x.shape[axis] - n, axis=axis)
-
-    def roll1(x):
-        return roll(x, 1)
-
-    def kernel(scal_ref, cost_ref, cur_ref, ref_ref, mmask_ref, emask_ref,
-               bs_ref, bk_ref, rs_scr):
-        s = pl.program_id(0)
-        ylo = scal_ref[s, 0]
-        nvy = scal_ref[s, 1]
-        jgbase = scal_ref[s, 2]
-        # f32 throughout: Mosaic's (dynamic_)rotate is 32-bit only; every
-        # value is an exact small integer so f32 arithmetic stays exact
-        cur = cur_ref[...].astype(jnp.int32).astype(jnp.float32)  # [block, w]
-
-        def group_body(t8, best):
-            # Mosaic cannot prove an arbitrary dynamic sublane offset is
-            # tile-aligned, and select-of-rolled lowers to an unsupported
-            # i16 dynamic rotate (both TPU sweep findings) — so the dy
-            # walk loads 8-ALIGNED (block+8)-row windows and unrolls the
-            # eight in-window rows as STATIC slices, masking rows outside
-            # the strip's [ylo, ylo+nvy) candidate range via the score.
-            base = pl.multiple_of(t8 * 8, 8)
-            win = ref_ref[pl.ds(base, block + 8), :].astype(
-                jnp.int32).astype(jnp.float32)
-
-            for jr in range(8):
-                bs, bk, bs_e, bk_e = best
-                ref16 = win[jr:jr + block]
-                j = t8 * 8 + jr - ylo
-                valid_j = (j >= 0) & (j < nvy)
-                jg = jnp.clip(jgbase + j, 0, n_d - 1)
-                iota8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-
-                def batch_update(c, sh, bs, bk, n_lanes, mask_ref,
-                                 cost_base, j=j, jg=jg, valid_j=valid_j,
-                                 iota8=iota8):
-                    """Eight dx candidates per step: per-dx work is the
-                    [block, w] diff + one row-sum store; everything [1, w]
-                    (block lane-sums, score, lex update) runs batched on
-                    [8, w] — a [1, w] vreg uses 1 of 8 sublanes, so the
-                    unbatched form wasted ~7/8 of the VPU on exactly the
-                    ops that dominate (measured 82 ms/1080p before)."""
-                    for k in range(8):
-                        diff = jnp.abs(cur[:, :n_lanes] - sh[:, :n_lanes])
-                        rs_scr[k, :n_lanes] = jnp.sum(diff, axis=0)
-                        sh = roll1(sh)
-                    rs8 = rs_scr[:, :n_lanes]
-                    lane_sh = 1
-                    while lane_sh < block:
-                        rs8 = rs8 + roll(rs8, lane_sh)
-                        lane_sh *= 2
-                    cost8 = jnp.stack(
-                        [cost_ref[cost_base + c * 8 + k, jg]
-                         for k in range(8)])[:, None]
-                    score8 = rs8 * _SCALE + cost8
-                    valid8 = (mask_ref[pl.ds(c * 8, 8),
-                                       :n_lanes] != 0) & valid_j
-                    score8 = jnp.where(valid8, score8, jnp.inf)
-                    key8 = jnp.broadcast_to(
-                        (cost_base + c * 8 + iota8) * n_win + j,
-                        (8, n_lanes))
-                    m = jnp.min(score8, axis=0, keepdims=True)
-                    km = jnp.min(jnp.where(score8 == m, key8, big_key),
-                                 axis=0, keepdims=True)
-                    better = (m < bs) | ((m == bs) & (km < bk))
-                    return (sh, jnp.where(better, m, bs),
-                            jnp.where(better, km, bk))
-
-                def dx_chunk(c, carry):
-                    sh, bs, bk = carry
-                    return batch_update(c, sh, bs, bk, w, mmask_ref, 0)
-
-                def edge_chunk(c, carry):
-                    sh, bs_e, bk_e = carry
-                    return batch_update(c, sh, bs_e, bk_e, edge_w,
-                                        emask_ref, n_win)
-
-                sh, bs, bk = jax.lax.fori_loop(0, n_win // 8, dx_chunk,
-                                               (ref16, bs, bk))
-                _, bs_e, bk_e = jax.lax.fori_loop(0, p_l // 8, edge_chunk,
-                                                  (sh, bs_e, bk_e))
-                best = (bs, bk, bs_e, bk_e)
-            return best
-
-        init = (jnp.full((1, w), jnp.inf, jnp.float32),
-                jnp.full((1, w), big_key, jnp.int32),
-                jnp.full((1, edge_w), jnp.inf, jnp.float32),
-                jnp.full((1, edge_w), big_key, jnp.int32))
-        bs, bk, bs_e, bk_e = jax.lax.fori_loop(
-            ylo // 8, (ylo + nvy + 7) // 8, group_body, init)
-        # fold the edge-lane best into the first edge_w lanes; outputs are
-        # whole arrays written one row per grid step (a (1, w) out block
-        # violates Mosaic's 8-sublane blocking rule — TPU sweep finding)
-        b0 = bs[:, :edge_w]
-        k0 = bk[:, :edge_w]
-        better = (bs_e < b0) | ((bs_e == b0) & (bk_e < k0))
-        bs_ref[pl.ds(s, 1), :] = jnp.concatenate(
-            [jnp.where(better, bs_e, b0), bs[:, edge_w:]], axis=1)
-        bk_ref[pl.ds(s, 1), :] = jnp.concatenate(
-            [jnp.where(better, bk_e, k0), bk[:, edge_w:]], axis=1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(strips,),
-        in_specs=[
-            pl.BlockSpec((block, w), lambda s, sc, ct: (s, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((8, wpad), jnp.float32)],
-    )
-    prog = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((strips, w), jnp.float32),
-                   jax.ShapeDtypeStruct((strips, w), jnp.int32)],
-        interpret=interpret,
-    )
-
-    d_lo = g["d_lo"]
-    jgb = jnp.asarray(g["jgbase"], jnp.int32)
-
-    def raw(cur_u8, ref_u8):
-        # +8 rows: the aligned slab window may overhang the bottom edge
-        refp = jnp.pad(ref_u8, ((0, 8), (pad_l, wpad - pad_l - w)))
-        return prog(jnp.asarray(g["scalars"]),
-                    jnp.asarray(g["cost"]),
-                    cur_u8[:strips * block],
-                    refp,
-                    jnp.asarray(g["main_mask"]),
-                    jnp.asarray(g["edge_mask"]))
-
-    def run(cur_u8, ref_u8):
-        _, bk = raw(cur_u8, ref_u8)
-        ks = bk[:, ::block]                       # [strips, wb]
-        i_dx = ks // n_win
-        j = ks % n_win
-        dx = i_dx + d_lo
-        dy = jgb[:, None] + j + d_lo
-        return _mv_rgba((-dx).astype(jnp.float32),
-                        (-dy).astype(jnp.float32), search, jnp)
-
-    jrun = jax.jit(run)
-    jrun._raw = jax.jit(raw)     # debug hook: per-lane (score, key)
-    return jrun
-
-
-def me_pallas_supported(h: int, w: int, block: int, search: int) -> bool:
-    p_l = search // 2 - block // 2
-    edge_blocks = -(-p_l // block) * block      # left-edge lanes needed
-    return (block == 16 and search >= 2 * block and search % 16 == 0
-            and h >= search and w >= 2 * search and w % 128 == 0
-            and edge_blocks <= 128)             # edge tail is 128 lanes
-
-
-def me_fullsearch_pallas(cur, ref, block: int = 16, search: int = 64,
-                         interpret: bool = False):
-    """Strip-kernel full search; ``None`` if the geometry is unsupported
-    (caller falls back to the XLA scan)."""
-    import jax.numpy as jnp
-    cur = jnp.asarray(cur)
-    h, w = cur.shape
-    if not me_pallas_supported(h, w, block, search):
-        return None
-    prog = _me_pallas_program(h, w, block, search, interpret)
-    return prog(cur, jnp.asarray(ref))
-
-
 def me_fullsearch_device(cur, ref, block: int = 16, search: int = 64,
                          metric: str = "sad"):
     """Device full-search: cur/ref [H, W] u8 -> [H//B, W//B, 4] u8 MVs.
 
     ``metric="sad"`` is the reference-parity path (kernels.metal:206-267
-    semantics): routes to the Pallas strip kernel on TPU-friendly
-    geometry, else the XLA scan.  ``metric="ssd"`` is the documented
-    MXU variant (`me_fullsearch_mxu`): same search geometry and MV-cost,
-    SSD distortion instead of SAD — roughly 30x faster because the cross
-    term runs on the systolic array.
+    semantics): the XLA scan.  ``metric="ssd"`` is the documented matmul
+    variant (`me_fullsearch_mxu`): same search geometry and MV-cost, SSD
+    distortion instead of SAD, with the cross term as a convolution.
     """
-    import jax
     import jax.numpy as jnp
     cur = jnp.asarray(cur)
     h, w = cur.shape
     if metric == "ssd":
-        # fastest measured formulations (1080p/16/64, v5e): the dense
-        # single-kernel Pallas search (3.56 ms — one [128,256]@[256,W]
-        # MXU matmul per dy candidate, dy-reduce in VMEM) on supported
-        # TPU geometry; else the grouped-conv XLA program (15.3 ms)
-        if (jax.default_backend() == "tpu"
-                and me_ssd_pallas_supported(h, w, block, search)):
-            return _me_ssd_pallas_program(h, w, block,
-                                          search)(cur, jnp.asarray(ref))
-        return _me_mxu_program(h, w, block, search,
-                               True)(cur, jnp.asarray(ref))
-    on_tpu = jax.default_backend() == "tpu"   # pltpu kernels are TPU-only
-    if on_tpu and me_pallas_supported(h, w, block, search):
-        return me_fullsearch_pallas(cur, ref, block, search)
+        # the ungrouped conv: on the H100 it both compiles and runs faster
+        # than the grouped (feature_group_count) formulation (PERF.md)
+        return _me_mxu_program(h, w, block, search)(cur, jnp.asarray(ref))
     return _me_program(h, w, block, search)(cur, jnp.asarray(ref))
 
 
-# --- MXU SSD variant -------------------------------------------------------
+# --- SSD matmul variant ----------------------------------------------------
 #
-# The exact-SAD formulations above are VPU-bound: Mosaic exposes no
-# sub-32-bit arithmetic, so 4.7e9 abs-diff lane-ops/frame floor out around
-# 20 ms at 1080p/16/64.  The MXU variant changes the distortion metric to
-# SSD, which decomposes as ||c||^2 - 2*c.r + ||r||^2:
+# Exact SAD is elementwise work: 4.7e9 abs-diffs per 1080p/16/64 frame.
+# The SSD variant changes the distortion metric to SSD, which decomposes
+# as ||c||^2 - 2*c.r + ||r||^2:
 #
 #   * the cross term c.r over a 16x16 block is a 256-deep contraction —
 #     expressed as `lax.conv` of each strip's reference window with the
-#     strip's current blocks as filters, it runs on the systolic array
-#     (u8 pixels are exact in bf16; 256 products <= 65280 accumulate
-#     exactly in f32);
+#     strip's current blocks as filters, it runs on the matrix units
+#     (u8 pixels are exact in bf16; each product is <= 65025 and a
+#     block's 256 of them sum below 2^24, so f32 accumulation is exact
+#     in any order);
 #   * ||r||^2 patch sums come from two separable integer reduce_windows;
 #   * ||c||^2 is constant per block, so it cannot change the argmin and
 #     is dropped from the computed score.
@@ -543,13 +276,11 @@ def _me_mxu_program(h: int, w: int, block: int, search: int,
     formulation's ~40x x-waste to ~1x.  Same scores bit-for-bit; whether
     it is faster depends on XLA's grouped-conv lowering (measure).
     ``unroll``: strips per fused scan step; 0 = FULL unroll (capped at
-    80).  Per-op fixed costs over 68 small-tensor scan iterations
-    dominate this program: measured 17.1 / 14.8 / 13.9 / 10.8 / 10.3 ms
-    at unroll 1 / 4 / 8 / 34 / 67 (full) for the grouped variant at
-    1080p/16/64.
+    80) — per-op fixed costs over ~68 small-tensor scan iterations
+    dominate this program.
     ``stride``: candidate-grid subsampling (grouped path only) — scores
     only every ``stride``-th dx (via the conv's ``window_strides``, so
-    the MXU work drops by 1/stride with unchanged conv shapes) and every
+    the conv work drops by 1/stride with unchanged shapes) and every
     ``stride``-th dy (fewer batch rows).  The winner is the best
     candidate ON THE SUBSAMPLED GRID, which is within stride-1 per axis
     of the exhaustive optimum's position — the coarse stage of the
@@ -653,11 +384,10 @@ def _me_mxu_program(h: int, w: int, block: int, search: int,
 
         def body(_, xs):
             win, f, nvy_s, jgb_s, ylo_s, oy_s = xs
-            # channels-folded correlation: a direct 2D conv with C_in=1
-            # lowers to ~VPU speed on TPU (measured 82 ms/frame at 1080p);
-            # folding the 16 vertical taps into input CHANNELS makes it a
-            # [kw=16, C_in=16, C_out=wb] 1D conv with a 256-deep MXU
-            # contraction and j as the batch axis (measured ~30x faster)
+            # channels-folded correlation: folding the 16 vertical taps
+            # into input CHANNELS makes a direct C_in=1 2D conv a
+            # [kw=16, C_in=16, C_out=wb] 1D conv with a 256-deep
+            # contraction and j as the batch axis
             v = jnp.stack([win[i:i + n_j:stride] for i in range(block)],
                           axis=-1).astype(jnp.bfloat16)  # [n_js, wpad, 16]
             rows = jnp.clip(ylo_s + j_iota, 0, h - block)
@@ -694,8 +424,7 @@ def _me_mxu_program(h: int, w: int, block: int, search: int,
                 gidx = txg_j
             # inner stage: reduce over dy on the FULL volume in ONE pass —
             # a variadic lexicographic reduce carries (score, j) together,
-            # so the 44 MB/strip volume is read once (two separate min
-            # passes measured ~6 ms slower/frame at 1080p)
+            # so the 44 MB/strip volume is read once, not twice
             cy_s = cy_tab[jnp.clip(jgb_s + j_iota, 0, n_d - 1)]
             inner = partial.astype(jnp.float32) * _SCALE2 \
                 + cy_s[:, None, None]
@@ -753,26 +482,16 @@ def _me_mxu_program(h: int, w: int, block: int, search: int,
 def _me_mxu_batched_program(h: int, w: int, block: int, search: int):
     """Strip-BATCHED grouped formulation: the whole frame as ONE conv.
 
-    The scan variants above pay a per-strip fixed cost that dominates the
-    program (measured 17.1 -> 10.3 ms going from unroll 1 to 67 at
-    1080p/16/64 — the FLOPs are trivial, the op count is not).  Here the
-    (strip, x-segment) pair folds into ``feature_group_count`` — a
-    depthwise-style grouped 1D conv with S*G groups, C_in 16 and C_out
-    ``gs`` per group — so every strip's cross-correlation runs in one
-    MXU dispatch and the dy lexicographic reduce runs once over the
-    stacked volume.  Bit-identical scores to the scanned grouped variant
-    (same per-element arithmetic; lex-min is order-independent).
+    The scan variants above pay a per-strip fixed cost (the FLOPs are
+    trivial, the op count is not).  Here the (strip, x-segment) pair
+    folds into ``feature_group_count`` — a depthwise-style grouped 1D
+    conv with S*G groups, C_in 16 and C_out ``gs`` per group — so every
+    strip's cross-correlation runs in one conv and the dy lexicographic
+    reduce runs once over the stacked volume, at the price of ~600 MB of
+    intermediates at 1080p.  Bit-identical scores to the scanned grouped
+    variant (same per-element arithmetic; lex-min is order-independent).
     Falls back to the scanned program when no group size divides the
-    block columns or the geometry is degenerate.
-
-    MEASURED (TPU v5e, 1080p/16/64, hardware-exact vs the scan): 21.4
-    ms/frame — SLOWER than the fully-unrolled scan's 15.3-15.6 ms, so
-    the scan stays the production default.  The per-strip "fixed cost"
-    is not dispatch (one program either way) but the grouped-conv
-    lowering itself: C_out=gs(=8)<128 lanes per group wastes ~94% of
-    the MXU, and stacking 67 strips into one conv multiplies the padded
-    work while adding ~600 MB of HBM intermediates.  Kept as the
-    documented negative result and for future XLA lowerings."""
+    block columns or the geometry is degenerate."""
     import jax
     import jax.numpy as jnp
     from jax import lax
@@ -905,7 +624,7 @@ def _me_mxu_batched_program(h: int, w: int, block: int, search: int):
 
 def me_fullsearch_mxu(cur, ref, block: int = 16, search: int = 64,
                       grouped: bool = False, batched: bool = False):
-    """SSD-variant full search on the MXU (see module notes above)."""
+    """SSD-variant full search (see module notes above)."""
     import jax.numpy as jnp
     cur = jnp.asarray(cur)
     h, w = cur.shape
@@ -916,350 +635,24 @@ def me_fullsearch_mxu(cur, ref, block: int = 16, search: int = 64,
                            grouped)(cur, jnp.asarray(ref))
 
 
-# --- dense single-kernel Pallas SSD search -----------------------------------
+# --- hierarchical (two-stage) mode -------------------------------------------
 #
-# The grouped-conv XLA program above is lowering-bound, not FLOP-bound:
-# its feature_group_count conv has C_out=8 lanes per group (94% of the
-# MXU's 128 output lanes idle) and kw=16 decomposes into K=16
-# contractions (15/16 of the 128-deep systolic contraction idle) — the
-# measured 10.8 ms "conv floor" is ~1.5% MXU utilization, and the score
-# stage re-reads the materialized correlation volume from HBM.  This
-# kernel restructures the WHOLE search around MXU-native shapes:
-#
-#   * dense candidate positions: every (tx, block) pair is scored as ONE
-#     [128, 256] @ [256, W] matmul per dy candidate — M=128 output
-#     sublanes (block columns), K=256 (the full 16x16 patch contraction),
-#     N=W lanes.  The ~26x positional over-compute vs the grouped
-#     formulation is the PRICE of full MXU shapes, and it wins: peak-rate
-#     dense work is ~2 ms where the "efficient" grouped conv measures
-#     10.8 ms;
-#   * the im2col matrix is FREE per dy candidate: SH2[16*y + i, tx] =
-#     win[y, tx+i] (built once per strip as a repeat + 4-step log-roll,
-#     32-bit rolls only), so candidate dy=j's [256, W] operand is the
-#     contiguous 16-aligned sublane slice SH2[16j : 16j+256] — no
-#     per-candidate assembly at all;
-#   * the dy reduction runs in VMEM while the matmul output is hot
-#     (running lexicographic (score, j) min — the correlation volume
-#     never touches HBM, vs ~284 MB/frame materialized by the XLA path);
-#   * the per-block candidate bands (dx = tx - 16*b, the only ~4% of
-#     positions that are real candidates) come out via a 7-step log-roll
-#     that aligns row b's band to lane dx - d_lo, turning the diagonal
-#     gather the v1 pyramid died on into 7 uniform 32-bit rotates; the
-#     kernel emits only the [blocks, n_d] dy-reduced plane per strip and
-#     the tiny outer tx stage stays in (tested) XLA.
-#
-# Exactness: identical to `me_ssd_golden` / the grouped program.  u8
-# pixels are exact in bf16; 256-product cross terms accumulate exactly in
-# f32; t = r2 - 2*cross is the correctly-rounded f32 of the exact integer
-# (IEEE subtraction of exact-int f32 operands == rounding the true
-# difference, the same value the i32 path converts); the 2^-4 score scale
-# is a power of two (FMA == two-step); ascending-j strict-< updates keep
-# the earliest dy like the oracle's inner loop; the outer stage is the
-# grouped program's own code on the same dy-reduced plane.
-#
-# Kernel-shape rules honored (pallas_frame.py header, hardware-sweep
-# findings): no strided refs; dynamic sublane starts are provably
-# 16-aligned (pl.multiple_of on 128*jslab + 16*i) with the sub-slab
-# residual statically unrolled (8 dy candidates per fori_loop step, so
-# the r2 slab load is 8-aligned); rotates only on 32-bit data (the bf16
-# SH2 is never rolled — it is written once, post-roll).
-
-_ME_DENSE_MT = 128      # MXU M-tile: block columns per matmul
-_ME_DENSE_MAX_WB = 256  # 2 M tiles — covers 4K (wb=240); VMEM-bounded
-
-
-def me_ssd_pallas_supported(h: int, w: int, block: int, search: int) -> bool:
-    """Geometry gate for the dense Pallas SSD kernel: the K=256 im2col
-    trick needs 16x16 blocks; the M-tile loop caps block columns at 256
-    (two tiles — 4K width; wider frames would need ~80 MB of VMEM)."""
-    return (block == 16 and search > block and search % 2 == 0
-            and h >= block and w >= search
-            and w // block <= _ME_DENSE_MAX_WB
-            and search - block >= 8)
-
-
-@lru_cache(maxsize=8)
-def _me_ssd_pallas_program(h: int, w: int, block: int, search: int,
-                           interpret: bool = False, raw: bool = False,
-                           global_sh2: Optional[bool] = None):
-    import jax
-    import jax.numpy as jnp
-    from jax import lax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert me_ssd_pallas_supported(h, w, block, search)
-    strips, wb = h // block, w // block
-    wbp = -(-wb // _ME_DENSE_MT) * _ME_DENSE_MT   # M tiles of 128 blocks
-    d_lo = block // 2 - search // 2            # < 0
-    d_hi = search - block - 1
-    n_d = d_hi - d_lo + 1
-    n_j = search - block
-    n_jp = -(-n_j // 8) * 8                    # 8-aligned dy slabs
-    n_slab = n_jp // 8
-    win_rows = n_jp + block                    # covers j + r, 16-aligned
-    neg, pos = -d_lo, d_hi + 1                 # band split: dx<0 / dx>=0
-    kk = block * block                         # 256 contraction depth
-    # frame-GLOBAL im2col: consecutive strips share (win_rows - block)
-    # of their window rows, so building SH2 once over the whole padded
-    # reference (at s == 0, in win_rows-row chunks) instead of per strip
-    # cuts the measured ~0.97 ms assembly stage ~4x and drops the f32
-    # wins input (33 MB/frame at 1080p) to the 2 MB u8 refp.  Gated on
-    # the bf16 plane fitting VMEM (1080p: 70.8 MB) — 4K keeps the
-    # per-strip build.
-    hr_p = -(-(h + search) // win_rows) * win_rows
-    if global_sh2 is None:
-        global_sh2 = block * hr_p * w * 2 <= 72 * 1024 * 1024
-    sh2_rows = block * (hr_p if global_sh2 else win_rows)
-
-    oy = np.arange(strips, dtype=np.int32) * block
-    ylo = np.clip(oy + d_lo, 0, h)
-    yhi = np.minimum(ylo + search, h) - block
-    nvy = np.maximum(yhi - ylo, 0)
-    jgbase = (ylo - oy) - d_lo
-    ox = np.arange(wb, dtype=np.int32) * block
-    xlo = np.clip(ox + d_lo, 0, w)
-    xhi = np.minimum(xlo + search, w) - block
-    dxs = np.arange(d_lo, d_hi + 1, dtype=np.int32)
-    txg = ox[:, None] + dxs[None, :]
-    xmask = jnp.asarray((txg >= xlo[:, None]) & (txg < xhi[:, None]))
-
-    dvals = (d_lo + np.arange(n_d)).astype(np.float64)
-    cx_tab = jnp.asarray(_axis_cost(-dvals).astype(np.float32))
-    cy_np = _axis_cost(-dvals).astype(np.float32)
-    jj = np.arange(n_jp, dtype=np.int32)
-    cyv_np = cy_np[np.clip(jgbase[:, None] + jj[None, :], 0, n_d - 1)]
-    cyv_np = np.where(jj[None, :] < nvy[:, None], cyv_np,
-                      np.inf).astype(np.float32)
-    big_key = np.int32(2 ** 30)
-
-    if interpret:
-        def roll_left(x, n):
-            return jnp.roll(x, -n, axis=1)
-    else:
-        def roll_left(x, n):
-            # pltpu.roll rejects negative shifts; left-roll n == size - n
-            return pltpu.roll(x, shift=x.shape[1] - n, axis=1)
-
-    def rep16(x):
-        # element repeat (row y -> rows 16y..16y+15).  NOT pltpu.repeat,
-        # whose hardware semantics are TILE (whole-array concat copies:
-        # row r = x[r % rows]) — measured on-chip; broadcast+reshape
-        # lowers to the intended element repeat in both modes.
-        return jnp.broadcast_to(x[:, None, :],
-                                (win_rows, block, w)).reshape(
-                                    win_rows * block, w)
-
-    def build_chunk(rows_u8):
-        # im2col of win_rows u8 reference rows: SH2[16y+i, tx] =
-        # rows[y, tx+i].  repeat puts rows[y] at 16y..16y+15; the 4-step
-        # log-roll rotates row r left by (r % 16) — all 32-bit.
-        st = rep16(rows_u8.astype(jnp.int32).astype(jnp.float32))
-        riota = lax.broadcasted_iota(jnp.int32, st.shape, 0)
-        for p in range(4):
-            sh = 1 << p
-            bit = ((riota >> p) & 1) == 1
-            st = jnp.where(bit, roll_left(st, sh), st)
-        return st.astype(jnp.bfloat16)
-
-    def kernel(cyv_ref, ylo_ref, src_ref, r2_ref, f_ref, d_ref, j_ref,
-               sh2_ref, best_ref, jb_ref):
-        s_id = pl.program_id(0)
-        if global_sh2:
-            # whole-frame im2col ONCE (strips share all but block rows
-            # of their windows); strip s slices at 16*ylo[s]
-            @pl.when(s_id == 0)
-            def _build():
-                def chunk(c, carry):
-                    base = pl.multiple_of(c * win_rows, 8)
-                    rows = src_ref[pl.ds(base, win_rows), :]
-                    dst = pl.multiple_of(c * block * win_rows, 16)
-                    sh2_ref[pl.ds(dst, block * win_rows), :] = \
-                        build_chunk(rows)
-                    return carry
-                lax.fori_loop(0, hr_p // win_rows, chunk, 0)
-            ybase = ylo_ref[s_id] * block
-        else:
-            sh2_ref[...] = build_chunk(src_ref[0])
-            ybase = 0
-
-        best_ref[...] = jnp.full((wbp, w), jnp.inf, jnp.float32)
-        jb_ref[...] = jnp.zeros((wbp, w), jnp.int32)
-        filt = f_ref[0]                        # [wbp, 256] bf16
-
-        def slab(jslab, carry):
-            base8 = pl.multiple_of(jslab * 8, 8)
-            r2slab = r2_ref[0, pl.ds(base8, 8), :]          # [8, w]
-            for i in range(8):                 # static residual unroll
-                j = jslab * 8 + i
-                off = pl.multiple_of(
-                    ybase + jslab * (8 * block) + i * block, block)
-                rhs = sh2_ref[pl.ds(off, kk), :]            # [256, w]
-                cy = cyv_ref[s_id, j]
-                for t0 in range(0, wbp, _ME_DENSE_MT):      # M tiles
-                    t1 = t0 + _ME_DENSE_MT
-                    cross = jnp.dot(filt[t0:t1], rhs,
-                                    preferred_element_type=jnp.float32)
-                    # f32(r2 - 2*cross) == f32(exact int partial): both
-                    # operands are exact ints in f32, IEEE sub rounds the
-                    # true difference (the oracle's i64 -> f32 value)
-                    t = r2slab[i:i + 1, :] - 2.0 * cross    # [128, w]
-                    inner = t * _SCALE2 + cy
-                    cur = best_ref[t0:t1, :]
-                    m = inner < cur
-                    best_ref[t0:t1, :] = jnp.where(m, inner, cur)
-                    jb_ref[t0:t1, :] = jnp.where(m, j, jb_ref[t0:t1, :])
-            return carry
-
-        lax.fori_loop(0, n_slab, slab, 0)
-
-        # band extraction: rotate row b left by 16*b (7-step log-roll on
-        # the block-index bits), putting candidate dx at lane dx for
-        # dx >= 0 and lane w+dx for dx < 0; wrapped lanes correspond
-        # exactly to out-of-frame dx, masked by xmask in the outer stage
-        best = best_ref[...]
-        jb = jb_ref[...]
-        biota = lax.broadcasted_iota(jnp.int32, (wbp, w), 0)
-        for p in range((wbp - 1).bit_length()):   # 7 bits at wbp=128
-            sh = (block << p) % w
-            if sh == 0:
-                continue
-            bit = ((biota >> p) & 1) == 1
-            best = jnp.where(bit, roll_left(best, sh), best)
-            jb = jnp.where(bit, roll_left(jb, sh), jb)
-        d_ref[0, :, :neg] = best[:, w - neg:]
-        d_ref[0, :, neg:] = best[:, :pos]
-        j_ref[0, :, :neg] = jb[:, w - neg:]
-        j_ref[0, :, neg:] = jb[:, :pos]
-
-    src_spec = (pl.BlockSpec(memory_space=pltpu.VMEM) if global_sh2
-                else pl.BlockSpec((1, win_rows, w), lambda s: (s, 0, 0),
-                                  memory_space=pltpu.VMEM))
-    call = pl.pallas_call(
-        kernel,
-        grid=(strips,),
-        in_specs=[
-            # whole array (Mosaic requires SMEM blocks to be unblocked
-            # or tile-aligned); rows indexed by program_id in-kernel
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            src_spec,
-            pl.BlockSpec((1, n_jp, w), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wbp, kk), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, wbp, n_d), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wbp, n_d), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(jax.ShapeDtypeStruct((strips, wbp, n_d), jnp.float32),
-                   jax.ShapeDtypeStruct((strips, wbp, n_d), jnp.int32)),
-        scratch_shapes=[
-            pltpu.VMEM((sh2_rows, w), jnp.bfloat16),
-            pltpu.VMEM((wbp, w), jnp.float32),
-            pltpu.VMEM((wbp, w), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=(112 if global_sh2 else 96) * 1024 * 1024),
-        interpret=interpret,
-    )
-
-    cyv_j = jnp.asarray(cyv_np)
-    rows_np = np.clip(ylo[:, None] + np.arange(n_jp)[None, :], 0, h - block)
-    win_idx = jnp.asarray(ylo[:, None] + np.arange(win_rows)[None, :])
-    rows_j = jnp.asarray(rows_np)
-    dxs_j = jnp.asarray(dxs)
-    oy_j = jnp.asarray(oy)
-    ylo_j = jnp.asarray(ylo)
-    ylo_smem = jnp.asarray(ylo, jnp.int32)
-
-    def run(cur_u8, ref_u8):
-        cur_u8 = cur_u8[:strips * block, :wb * block]
-        refp = jnp.pad(ref_u8, ((0, search), (0, 0)))
-        r2c = lax.reduce_window(refp.astype(jnp.int32) ** 2, 0, lax.add,
-                                (block, 1), (1, 1), "valid")
-        s2 = lax.reduce_window(r2c, 0, lax.add, (1, block), (1, 1),
-                               "valid")
-        if global_sh2:
-            src = jnp.pad(refp, ((0, hr_p - h - search), (0, 0)))
-        else:
-            src = jnp.take(refp, win_idx, axis=0)
-        r2f = jnp.pad(s2[rows_j], ((0, 0), (0, 0), (0, block - 1))
-                      ).astype(jnp.float32)
-        filt = (cur_u8.reshape(strips, block, wb, block)
-                .transpose(0, 2, 1, 3)        # [S, b, r, i]
-                .reshape(strips, wb, kk).astype(jnp.bfloat16))
-        filt = jnp.pad(filt, ((0, 0), (0, wbp - wb), (0, 0)))
-        dd, jg = call(cyv_j, ylo_smem, src, r2f, filt)
-        tg = dd[:, :wb, :]
-        jg = jg[:, :wb, :]
-        # outer tx stage — same expressions as the grouped program
-        score = tg + cx_tab[None, None, :]
-        score = jnp.where(xmask[None], score, jnp.inf)
-        m = jnp.min(score, axis=2)
-        km = jnp.min(jnp.where(score == m[..., None],
-                               jnp.arange(n_d, dtype=jnp.int32)[None, None],
-                               big_key), axis=2)
-        j_best = jnp.take_along_axis(jg, km[..., None], axis=2)[..., 0]
-        valid = jnp.isfinite(m)
-        mvx = jnp.where(valid, (-dxs_j)[km].astype(jnp.float32), 0.0)
-        mvy = jnp.where(
-            valid,
-            (oy_j[:, None] - (ylo_j[:, None] + j_best)).astype(jnp.float32),
-            0.0)
-        if raw:
-            return mvx, mvy
-        return _mv_rgba(mvx, mvy, search, jnp)
-
-    return jax.jit(run)
-
-
-def me_fullsearch_ssd_pallas(cur, ref, block: int = 16, search: int = 64,
-                             interpret: bool = False):
-    """Dense single-kernel Pallas SSD search (see section notes above).
-
-    Same search geometry, clamped windows, MV-cost and x-major tie
-    order as the reference's ``me_fullsearch`` (kernels.metal:130-267);
-    SSD distortion is the documented metric deviation shared with
-    `me_fullsearch_mxu`.  Candidate-exact vs ``me_ssd_golden``,
-    restructured for full MXU utilization: 3.03 ms/frame at 1080p/16/64
-    and 25 ms at 4K on v5e (vs 15.3 / 69.7 ms for the grouped XLA
-    formulation)."""
-    import jax.numpy as jnp
-    cur = jnp.asarray(cur)
-    h, w = cur.shape
-    return _me_ssd_pallas_program(h, w, block, search,
-                                  interpret)(cur, jnp.asarray(ref))
-
-
-# --- hierarchical (two-stage) production mode --------------------------------
-#
-# v1 of this mode ran the coarse search at HALF RESOLUTION and refined
-# with a per-block [hb, wb, win, win] advanced-indexing gather.  Measured
-# on the chip (1080p/16/64) every stage was pathological: the strided
-# down-2 decimation alone cost 68 ms (u8 stride-2 slices lower to scalar
-# code), the half-res SSD search 30 ms (block-8 conv shapes waste the
-# MXU's 256-deep contraction), the 4-D gather 57 ms (never fuses, the
-# exact pattern ops/pallas_frame.py warns about), and the 25-candidate
-# strided-slice re-score 25 ms — 98 ms/frame total, 6x SLOWER than the
-# exhaustive grouped search it was meant to accelerate.  v2 keeps the
-# two-stage structure but changes both stages:
+# Both stages avoid the patterns that make a coarse-to-fine search slow:
+# no half-resolution decimation (u8 stride-2 slices), no per-block 4-D
+# advanced-indexing gather.
 #
 #   * coarse = the SAME grouped-conv exhaustive program at FULL
 #     resolution with a stride-2 CANDIDATE grid (conv window_strides +
-#     subsampled dy rows): identical MXU-friendly shapes, 1/4 the work,
-#     and the winner is within 1 per axis of some grid point around the
-#     true optimum's basin;
+#     subsampled dy rows): identical conv shapes, 1/4 the work, and the
+#     winner is within 1 per axis of some grid point around the true
+#     optimum's basin;
 #   * refine = a strip-scanned re-score of (2*refine+1)^2 candidates
 #     around each block's coarse pick, with the patch gather expressed
-#     as a ROW take (fast: whole cache lines) followed by a one-hot
-#     COLUMN matmul (MXU; u8 values are exact in bf16), and the SSD
-#     cross/self terms as two small matmuls per strip (a static-index
-#     take builds the shifted-window view; ||r||^2 contracts against a
-#     static 0/1 window matrix).  No dynamic multi-axis gather anywhere.
+#     as a ROW take (whole cache lines) followed by a one-hot COLUMN
+#     matmul (u8 values are exact in bf16), and the SSD cross/self terms
+#     as two small matmuls per strip (a static-index take builds the
+#     shifted-window view; ||r||^2 contracts against a static 0/1 window
+#     matrix).  No dynamic multi-axis gather anywhere.
 
 @lru_cache(maxsize=8)
 def _me_refine_program(h: int, w: int, block: int, search: int,
@@ -1334,7 +727,7 @@ def _me_refine_program(h: int, w: int, block: int, search: int,
         def body(_, xs):
             gy0r, gx0r, cbr, oy_s, ylo_s, yhi_s = xs
             # patch gather: rows by take (contiguous W-wide lines), then
-            # columns by one-hot matmul on the MXU (exact: u8 in bf16,
+            # columns by one-hot matmul (exact: u8 in bf16,
             # one 1 per output lane, f32 accumulation)
             rows = jnp.take(ref_u8, gy0r[:, None] + iw[None, :], axis=0,
                             mode="clip")                   # [wb, win, W]
@@ -1418,7 +811,7 @@ def _me_pyramid_program(h: int, w: int, block: int, search: int,
     wb = w // block
     gs = next((g for g in (8, 6, 5, 4, 3, 2) if wb % g == 0), 0)
     # coarse: the grouped-conv SSD program at full resolution with a
-    # stride-2 candidate grid (1/4 the exhaustive work, same MXU shapes);
+    # stride-2 candidate grid (1/4 the exhaustive work, same conv shapes);
     # if no group size divides the block columns, fall back to the
     # exhaustive dense coarse (rare geometry; refine is then a no-op
     # quality-wise but keeps the output contract uniform)
@@ -1438,34 +831,31 @@ def me_fullsearch_pyramid(cur, ref, block: int = 16, search: int = 64,
     """Two-stage hierarchical motion estimation — EXPERIMENTAL, not the
     production mode (beyond the reference, whose Metal kernel is
     exhaustive-only; the production speed mode is the exhaustive
-    ``me_fullsearch_device(metric="ssd")`` grouped search).
+    ``me_fullsearch_device(metric="ssd")`` search).
 
-    Stage 1 (coarse) runs the grouped-conv MXU SSD search at FULL
+    Stage 1 (coarse) runs the grouped-conv SSD search at FULL
     resolution over a stride-2 candidate grid — every grid point is
     within 1 per axis of any exhaustive candidate, at 1/4 the conv
     work.  Stage 2 re-scores ``coarse_pick +- refine`` per block with
     the requested ``metric``'s exact scoring (same cost tables, tie
     order, and f32 arithmetic as the oracles), gathering candidate
     patches via row takes + one-hot column matmuls so no dynamic
-    multi-axis gather reaches the compiler (see the v1 post-mortem in
-    the section comment above).
+    multi-axis gather reaches the compiler (see the section comment
+    above).
 
-    Measured on the chip (1080p/16/64, same contention window): v1
-    97.9 ms -> v2 ~42 ms vs exhaustive grouped ~41 ms.  Per-strip fixed
-    costs dominate this program family, so cutting conv FLOPs 4x buys
-    only ~20% on the coarse stage, and the refine stage costs as much
-    as another coarse pass — two-stage CANNOT beat one exhaustive pass
-    until the per-strip floor drops.  Hence: experimental, kept for the
-    structure (a cheaper coarse stage would slot in) and for metric=
+    Per-strip fixed costs dominate this program family, so cutting conv
+    FLOPs 4x buys little on the coarse stage, and the refine stage costs
+    about as much as another coarse pass.  Hence: experimental, kept for
+    the structure (a cheaper coarse stage would slot in) and for metric=
     "sad" refinement of SSD-guided candidates, which the exhaustive
-    MXU path cannot express.
+    matmul path cannot express.
 
     NOT exhaustive (documented deviation): content where the stride-2
     SSD landscape is misleading beyond the +-refine margin — strongly
     aliased 1-px textures, or very-low-gradient regions where the MV
     cost term flattens the landscape — may pick a worse candidate than
-    ``me_fullsearch_device`` (measured ~1% of interior blocks at 1080p
-    on smooth sinusoid content under an odd global shift; 0% when the
+    ``me_fullsearch_device`` (about 1% of interior blocks at 1080p on
+    smooth sinusoid content under an odd global shift; none when the
     shift lies on the stride grid).  When the true optimum's basin
     contains the best grid candidate, ``refine >= 1`` recovers the
     exhaustive answer exactly; the tests assert exact interior

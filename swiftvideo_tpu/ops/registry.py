@@ -5,7 +5,7 @@ Reference semantics: ``/root/reference/Sources/SwiftVideo/compute.swift``
 applyComputeImage :145-170).
 
 Kernels keep the reference's ``img_<inFmt>_<outFmt>`` naming; the registry
-resolves a name to the fused device program (ops.composite / pallas).  The
+resolves a name to the fused device program (ops.composite).  The
 coverage is the full cross product of {y420p, nv12, nv21, rgba, bgra} inputs
 x {y420p, nv12, rgba, bgra} outputs — a superset of the reference's
 per-backend kernel matrix (SURVEY.md §2.3), because here every pair shares
@@ -84,8 +84,8 @@ class ComputeContext:
     """Device context: caches jitted programs, tracks custom kernels, and
     selects the execution backend (makeComputeContext, compute.swift:121).
 
-    backend: 'jax' (XLA gather path, works everywhere), 'pallas' (fused TPU
-    kernels with jax fallback per-op), or 'golden' (numpy oracle, debugging).
+    backend: 'jax' (the jitted XLA device path) or 'golden' (numpy
+    oracle, debugging).
     """
 
     backend: str = "jax"
@@ -107,15 +107,15 @@ def has_available_compute_devices() -> bool:
 
 
 def make_compute_context(backend: str = "jax") -> ComputeContext:
-    if backend in ("jax", "pallas"):
+    if backend == "jax":
         import jax
         devices = jax.devices()
         if not devices:
             raise ComputeError("deviceNotAvailable")
-        if backend == "pallas" and devices[0].platform != "tpu":
-            backend = "jax"  # pallas fused kernels target TPU; fall back
         return ComputeContext(backend=backend, device=devices[0])
-    return ComputeContext(backend="golden", device=None)
+    if backend == "golden":
+        return ComputeContext(backend="golden", device=None)
+    raise ComputeError(f"unknown compute backend {backend!r}")
 
 
 def begin_compute_pass(ctx: ComputeContext) -> ComputeContext:
@@ -158,13 +158,10 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
                 "me_fullsearch_pyramid"):
         # motion estimation: images = [current, reference] luma samples;
         # emits an RGBA MV map at block resolution (kernels.metal:206-267).
-        # The _ssd variant runs the MXU formulation (documented metric
+        # The _ssd variant runs the matmul formulation (documented metric
         # deviation, ops/motion.py module notes) — the production speed
-        # mode: the dense single-kernel Pallas search on supported TPU
-        # geometry (3.56 ms/frame at 1080p/16/64, 8.2x the SAD mode),
-        # grouped-conv XLA otherwise; _pyramid is the experimental
-        # two-stage mode (stride-2 coarse grid + exact local refine),
-        # measured at parity with grouped on the chip, not faster.
+        # mode; _pyramid is the experimental two-stage mode (stride-2
+        # coarse grid + exact local refine).
         from ..media.picture import ImageBuffer
         from ..media.pixel import planes_for_format
         from . import motion

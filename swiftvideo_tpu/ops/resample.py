@@ -1,14 +1,14 @@
-"""Polyphase FIR sample-rate conversion, MXU-formulated.
+"""Polyphase FIR sample-rate conversion as one matmul per cycle block.
 
 Replaces the reference's soxr-backed resampler (src.audio.ffmpeg.swift:
 134-147: ``resampler=soxr, precision 24, triangular dither``) with a
-TPU-native design: a Kaiser-windowed sinc prototype factored into L
+device design: a Kaiser-windowed sinc prototype factored into L
 polyphase branches and evaluated as **one dense matmul per cycle block** —
 
     out[c*L + p] = dot(H[p, :], x[c*M + r0 : c*M + r0 + R])
 
 i.e. frame the input into overlapping [cycles, R] windows and contract with
-the [L, R] phase-filter matrix on the MXU.  Streaming state is an input
+the [L, R] phase-filter matrix.  Streaming state is an input
 FIFO with absolute sample accounting so emitted (pts, count) bookkeeping is
 exact (the contract asserted by the reference's sampleCountTest,
 sampleRateConversionTests.swift:26-58).
@@ -82,9 +82,9 @@ def _windows_matmul_jit(channels: int, cycles: int, R: int, L: int):
     def run(x, H, starts):
         idx = starts[:, None] + jnp.arange(R)[None, :]
         win = jnp.take(x, idx, axis=-1)  # [C, cycles, R]
-        # precision='highest': full-f32 MXU accumulation — JAX's default
-        # matmul precision is bf16-class, far below this filter's 24-bit
-        # design target
+        # precision='highest': full f32 — JAX's default f32 matmul runs
+        # in TF32 on the H100 (10-bit mantissa), far below this filter's
+        # 24-bit design target
         return jnp.einsum("pcr,lr->pcl", win, H, precision="highest",
                           preferred_element_type=jnp.float32)
 

@@ -9,7 +9,7 @@ texture uv) is identical.
 
 ``ImageUniforms.pack()/unpack()`` flatten to a ``[UNIFORM_WIDTH]`` f32 vector
 so a z-sorted stack of N sources rides into device kernels as one
-``[N, UNIFORM_WIDTH]`` array (SMEM-friendly scalars for Pallas).
+``[N, UNIFORM_WIDTH]`` array.
 """
 
 from __future__ import annotations

@@ -223,46 +223,10 @@ def test_motion_device_matches_golden(seed):
     assert np.array_equal(gold, dev)
 
 
-@pytest.mark.parametrize("geom", [(96, 128, 64), (128, 256, 64),
-                                  (120, 128, 32)])
-def test_motion_pallas_matches_golden(geom):
-    """Strip-kernel full search (interpret mode) is candidate-exact vs the
-    scalar oracle, including truncated right/bottom windows and the
-    left-edge extra-dx tail (kernels.metal:206-267 scan-order ties)."""
-    h, w, search = geom
-    rng = np.random.default_rng(h + w + search)
-    ref = rng.integers(0, 255, (h, w), np.uint8)
-    cur = np.clip(ref.astype(int) + rng.integers(-12, 12, ref.shape),
-                  0, 255).astype(np.uint8)
-    gold = motion.me_fullsearch_golden(cur, ref, 16, search)
-    pal = motion.me_fullsearch_pallas(cur, ref, 16, search, interpret=True)
-    assert pal is not None
-    assert np.array_equal(gold, np.asarray(pal))
-
-
-def test_motion_pallas_translation_recovered():
-    rng = np.random.default_rng(9)
-    ref = rng.integers(0, 255, (128, 128), np.uint8)
-    shift = 6
-    cur = np.roll(ref, (shift, shift), axis=(0, 1))
-    out = np.asarray(motion.me_fullsearch_pallas(cur, ref, 16, 64,
-                                                 interpret=True))
-    expect = int(round((shift / 32 * 0.5 + 0.5) * 255))
-    inner = out[2:6, 2:6]
-    assert np.all(inner[..., 0] == expect) and np.all(inner[..., 2] == expect)
-
-
-def test_motion_pallas_gate():
-    # unsupported geometry (width not lane-aligned) falls back cleanly
-    assert motion.me_fullsearch_pallas(
-        np.zeros((64, 96), np.uint8), np.zeros((64, 96), np.uint8),
-        16, 32, interpret=True) is None
-
-
 @pytest.mark.parametrize("geom", [(64, 128, 64), (96, 96, 32),
                                   (48, 80, 64)])
 def test_motion_mxu_ssd_matches_golden(geom):
-    """The MXU SSD variant is candidate-exact vs its own scalar oracle
+    """The SSD matmul variant is candidate-exact vs its own scalar oracle
     (power-of-two score scale makes FMA and two-step rounding agree),
     including clamped edge windows."""
     h, w, search = geom
@@ -322,79 +286,6 @@ def test_motion_mxu_ssd_grouped_matches_golden(geom):
     grp = np.asarray(motion.me_fullsearch_mxu(cur, ref, 16, search,
                                               grouped=True))
     assert np.array_equal(gold, grp)
-
-
-@pytest.mark.parametrize("geom", [(96, 160, 64), (64, 128, 64),
-                                  (96, 96, 32), (128, 2048, 64)])
-def test_motion_ssd_pallas_dense_matches_golden(geom):
-    """The dense single-kernel Pallas SSD search (interpret mode) is
-    candidate-exact vs the scalar oracle AND the grouped XLA program,
-    including clipped top/bottom dy windows (strips 0/1 and the last
-    strips), wrapped roll lanes at both frame edges, and the padded-j
-    tail when n_j is not a slab multiple."""
-    h, w, search = geom
-    rng = np.random.default_rng(h * w + search + 1)
-    ref = rng.integers(0, 255, (h, w), np.uint8)
-    cur = np.clip(ref.astype(int) + rng.integers(-12, 12, ref.shape),
-                  0, 255).astype(np.uint8)
-    assert motion.me_ssd_pallas_supported(h, w, 16, search)
-    out = np.asarray(motion.me_fullsearch_ssd_pallas(cur, ref, 16, search,
-                                                     interpret=True))
-    gold = motion.me_ssd_golden(cur, ref, 16, search)
-    assert np.array_equal(gold, out)
-    grp = np.asarray(motion.me_fullsearch_mxu(cur, ref, 16, search,
-                                              grouped=True))
-    assert np.array_equal(grp, out)
-
-
-def test_motion_ssd_pallas_translation_recovered():
-    rng = np.random.default_rng(27)
-    ref = rng.integers(0, 255, (128, 128), np.uint8)
-    shift = 6
-    cur = np.roll(ref, (shift, shift), axis=(0, 1))
-    out = np.asarray(motion.me_fullsearch_ssd_pallas(cur, ref, 16, 64,
-                                                     interpret=True))
-    expect = int(round((shift / 32 * 0.5 + 0.5) * 255))
-    inner = out[2:6, 2:6]
-    assert np.all(inner[..., 0] == expect) and np.all(inner[..., 2] == expect)
-
-
-def test_motion_ssd_pallas_per_strip_variant_matches():
-    """The per-strip im2col build (the 4K/VMEM-fallback path) stays
-    exact when the geometry would default to the frame-global build."""
-    h, w, search = 96, 160, 64
-    rng = np.random.default_rng(61)
-    ref = rng.integers(0, 255, (h, w), np.uint8)
-    cur = np.clip(ref.astype(int) + rng.integers(-12, 12, ref.shape),
-                  0, 255).astype(np.uint8)
-    prog = motion._me_ssd_pallas_program(h, w, 16, search, True, False,
-                                         global_sh2=False)
-    out = np.asarray(prog(cur, ref))
-    gold = motion.me_ssd_golden(cur, ref, 16, search)
-    assert np.array_equal(gold, out)
-
-
-def test_motion_ssd_pallas_gate():
-    assert not motion.me_ssd_pallas_supported(64, 48, 16, 64)   # w < search
-    assert not motion.me_ssd_pallas_supported(64, 64, 8, 64)    # block != 16
-    assert not motion.me_ssd_pallas_supported(64, 8192, 16, 64)  # wb > 256
-    assert motion.me_ssd_pallas_supported(1080, 1920, 16, 64)
-    assert motion.me_ssd_pallas_supported(2160, 3840, 16, 64)   # 4K: 2 tiles
-
-
-def test_motion_ssd_pallas_dense_two_m_tiles():
-    """wb > 128 runs the M-tile loop (the 4K shape, scaled down): two
-    [128, 256] filter tiles against one shared rhs, per-tile best/jb
-    slab updates, 8-bit band log-roll."""
-    h, w, search = 64, 2176, 64          # wb = 136 -> wbp = 256
-    rng = np.random.default_rng(136)
-    ref = rng.integers(0, 255, (h, w), np.uint8)
-    cur = np.clip(ref.astype(int) + rng.integers(-12, 12, ref.shape),
-                  0, 255).astype(np.uint8)
-    out = np.asarray(motion.me_fullsearch_ssd_pallas(cur, ref, 16, search,
-                                                     interpret=True))
-    gold = motion.me_ssd_golden(cur, ref, 16, search)
-    assert np.array_equal(gold, out)
 
 
 # --- hierarchical (pyramid) motion mode ------------------------------------

@@ -1,16 +1,14 @@
-"""Sharded mixing wall on the virtual 8-device CPU mesh."""
+"""Sharded mixing wall on the virtual 8-device CPU mesh (conftest)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from swiftvideo_tpu.parallel import MixingWall, make_mesh
+from swiftvideo_tpu.parallel import MixingWall
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_16_streams_over_8_devices():
-    mesh = make_mesh(jax.devices()[:8])
+def test_wall_16_streams_over_8_devices(mesh8):
+    mesh = mesh8
     n = 64
     sw, sh = 64, 36
     wall = MixingWall(mesh, n_streams=n, stream_size=(sw, sh),
@@ -35,9 +33,8 @@ def test_wall_16_streams_over_8_devices():
     assert abs(int(np.asarray(wv)[10, 10]) - 150) <= 1
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_audio_saturates():
-    mesh = make_mesh(jax.devices()[:8])
+def test_wall_audio_saturates(mesh8):
+    mesh = mesh8
     wall = MixingWall(mesh, n_streams=64, stream_size=(16, 16),
                       canvas_size=(64, 64), audio_samples=8)
     ys = wall.shard(jnp.zeros((64, 16, 16), jnp.uint8))
@@ -48,14 +45,13 @@ def test_wall_audio_saturates():
     assert np.all(np.asarray(mixed) == 32767)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_tiles_match_oracle():
+def test_wall_tiles_match_oracle(mesh8):
     """Each wall tile must equal the golden oracle's convert+scale of its
     stream (identity uniforms, full-canvas element)."""
     from swiftvideo_tpu.media import PixelFormat
     from swiftvideo_tpu.ops import golden, identity_uniforms
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = mesh8
     n, sw, sh = 64, 64, 36
     wall = MixingWall(mesh, n_streams=n, stream_size=(sw, sh),
                       canvas_size=(128, 96), audio_samples=8)
@@ -79,13 +75,12 @@ def test_wall_tiles_match_oracle():
         assert np.abs(got.astype(int) - expect[0].astype(int)).max() <= 1
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_per_stream_uniforms():
+def test_wall_per_stream_uniforms(mesh8):
     """Per-cell uniforms: one stream renders at half opacity into its tile,
     another with a fill-colored aspect inset."""
     from swiftvideo_tpu.ops import identity_uniforms, rect_uniforms
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = mesh8
     n, sw, sh = 64, 32, 16
     wall = MixingWall(mesh, n_streams=n, stream_size=(sw, sh),
                       canvas_size=(128, 96), audio_samples=8)
@@ -105,11 +100,10 @@ def test_wall_per_stream_uniforms():
     assert abs(int(y[th // 2, tw + tw // 2]) - 200) <= 2
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_48_streams_6x8_grid_aligned():
+def test_wall_48_streams_6x8_grid_aligned(mesh8):
     """Rectangular 6x8 wall for 48 streams on 8 devices (VERDICT r2 #6):
     one wall row per device, aligned zero-collective video path."""
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = mesh8
     n = 48
     wall = MixingWall(mesh, n_streams=n, stream_size=(32, 16),
                       canvas_size=(96, 64), grid=(6, 8), audio_samples=24)
@@ -128,12 +122,11 @@ def test_wall_48_streams_6x8_grid_aligned():
         assert y[r * 8 + 4, c * 16 + 8] == (r * 6 + c) * 5
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_non_divisible_streams_gather_path():
+def test_wall_non_divisible_streams_gather_path(mesh8):
     """20 streams on 8 devices: padded to 24, 5x4 auto grid, cross-chip
     tile gather assembles a replicated canvas; blanks are black cells and
     contribute no audio."""
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = mesh8
     n = 20
     wall = MixingWall(mesh, n_streams=n, stream_size=(32, 16),
                       canvas_size=(80, 32), audio_samples=24)
@@ -153,16 +146,14 @@ def test_wall_non_divisible_streams_gather_path():
     assert abs(int(u[2 * 4 + 2, 3 * 8 + 4]) - 90) <= 1
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_grid_too_small_raises():
-    mesh = make_mesh(jax.devices()[:8])
+def test_wall_grid_too_small_raises(mesh8):
+    mesh = mesh8
     with pytest.raises(ValueError):
         MixingWall(mesh, n_streams=48, stream_size=(32, 16),
                    canvas_size=(96, 64), grid=(4, 4))
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
-def test_wall_fed_by_64_rtmp_ingest_sessions():
+def test_wall_fed_by_64_rtmp_ingest_sessions(mesh8):
     """BASELINE config 5's HOST shape end-to-end: 64 concurrent RTMP
     publishers into one server/event loop, each session's latest frame
     landing in a per-stream table that feeds the wall's shard step on
@@ -236,11 +227,10 @@ def test_wall_fed_by_64_rtmp_ingest_sessions():
     assert len(latest) == n
 
     # per-stream frame table from the ingest sessions -> wall shard step
-    from swiftvideo_tpu.parallel import MixingWall, make_mesh
     seeds = np.array([latest[f"cam{k}"].data()[5] for k in range(n)],
                      np.uint8)
     ys_host = np.broadcast_to(seeds[:, None, None], (n, sh, sw)).copy()
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = mesh8
     wall = MixingWall(mesh, n_streams=n, stream_size=(sw, sh),
                       canvas_size=(128, 64), audio_samples=16, channels=2)
     ys = wall.shard(jnp.asarray(ys_host))
